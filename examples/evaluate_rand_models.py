@@ -15,16 +15,15 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-from koopman_realizations_tpu.models.rsys import construct_systems, simulate_systems
-from koopman_realizations_tpu.utils.matio import load_rsys_all
-from koopman_realizations_tpu.workflows import evaluate_rand_models
+from koopman_realizations.models.rsys import construct_systems, simulate_systems
+from koopman_realizations.utils.matio import load_rsys_all
+from koopman_realizations.workflows import evaluate_rand_models
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--folder", default=None,
-                    help="shipped rand-systems_* folder (default: first with "
-                         ">=20 systems)")
+                    help="a rand-systems_* folder holding rsys-all_*.mat")
     ap.add_argument("--generate", type=int, default=0,
                     help="instead, generate this many fresh random systems")
     args = ap.parse_args()
@@ -38,16 +37,7 @@ def main():
         print(f"generated {args.generate} random systems")
     else:
         folder, datasets = args.folder, None
-        if folder is None:
-            for cand in sorted(glob.glob(
-                    "/root/reference/datafiles/rand-systems_*")):
-                files = glob.glob(cand + "/rsys-all_*.mat")
-                if files:
-                    loaded = load_rsys_all(files[0])
-                    if len(loaded) >= 20:
-                        folder, datasets = cand, loaded
-                        break
-        else:
+        if folder is not None:
             files = glob.glob(folder + "/rsys-all_*.mat")
             if files:
                 datasets = load_rsys_all(files[0])

@@ -1,8 +1,12 @@
 """Closed-loop trajectory tracking with K-MPC / K-BMPC / K-NMPC on the
-blockM trajectory (reference ``example_control.m``), comparing against the
-shipped golden results when available.
+blockM trajectory (reference ``example_control.m``).
+
+Trains on the in-repo arm corpus (``utils.data.generate_arm_data``) unless
+``--datafile`` names a reference datafile; ``--golden DIR`` adds the
+reference's golden blockM result structs for comparison.
 
 Run:  python examples/example_control.py [--steps N] [--batch B]
+          [--datafile PATH] [--golden DIR]
 """
 
 import argparse
@@ -14,19 +18,20 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-from koopman_realizations_tpu.config import ArmConfig, MpcConfig, SysidConfig
-from koopman_realizations_tpu.control import Ksim, make_kmpc
-from koopman_realizations_tpu.models.arm import Arm
-from koopman_realizations_tpu.models.edmd import Ksysid
-from koopman_realizations_tpu.utils.matio import (
+from koopman_realizations.config import ArmConfig, MpcConfig, SysidConfig
+from koopman_realizations.control import Ksim, make_kmpc
+from koopman_realizations.models.arm import Arm
+from koopman_realizations.models.edmd import Ksysid
+from koopman_realizations.utils.data import generate_arm_data
+from koopman_realizations.utils.matio import (
     load_data4sysid,
-    load_ref_trajectory,
     load_sim_results,
 )
+from koopman_realizations.utils.trajectories import (
+    get_blockM,
+    make_trajectory,
+)
 
-REF = "/root/reference"
-GOLD = (REF + "/systems/thesis-arm-markers_noload_3-mods_1-links_20hz/"
-        "simulations/blockM_c0p45-0p35_0p5x0p5_15sec/")
 GOLD_FILES = {
     "linear": "linear_poly-3_n-6_m-3_del-0_2020-06-09_16-42.mat",
     "bilinear": "bilinear_poly-3_n-6_m-3_del-0_2020-06-09_16-43.mat",
@@ -39,12 +44,18 @@ def main():
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--batch", type=int, default=0,
                     help="additionally run a batch of B perturbed scenarios")
+    ap.add_argument("--datafile", default=None,
+                    help="train on this datafile instead of the in-repo "
+                         "corpus")
+    ap.add_argument("--golden", default=None,
+                    help="directory of the reference's golden blockM "
+                         "result structs")
     args = ap.parse_args()
 
-    data = load_data4sysid(
-        REF + "/datafiles/arm-3link-markers-noload-50trials_train-10_val-5.mat")
-    ref = load_ref_trajectory(
-        REF + "/trajectories/files/blockM_c0p45-0p35_0p5x0p5_15sec.mat")
+    data = load_data4sysid(args.datafile) if args.datafile \
+        else generate_arm_data(seed=0)
+    ref = make_trajectory(get_blockM([0.45, -0.35], 0.5, 0.5), T=15.0,
+                          Ts=0.05, flip_y=True)
     arm = Arm(ArmConfig(Nmods=3, nlinks=1, L=1.0, m=0.1,
                         output_type="markers", substeps=5))
     mpc_cfg = MpcConfig(
@@ -68,8 +79,8 @@ def main():
         line = (f"{model_type:9s}: err mean {res['err'].mean():.4f} "
                 f"max {res['err'].max():.4f}  "
                 f"({res['err'].shape[0]} steps, {dt:.1f}s)")
-        gold_path = GOLD + GOLD_FILES[model_type]
-        if os.path.exists(gold_path):
+        gold_path = os.path.join(args.golden or "", GOLD_FILES[model_type])
+        if args.golden and os.path.exists(gold_path):
             g = load_sim_results(gold_path)
             line += (f"   [reference: mean {g['err'].mean():.4f} "
                      f"max {g['err'].max():.4f}]")

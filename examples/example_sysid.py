@@ -1,6 +1,9 @@
 """Train linear, bilinear, and nonlinear Koopman realizations of the 3-link
 arm and compare validation rollouts (reference ``example_sysid.m``).
 
+Trains on the in-repo arm corpus (``utils.data.generate_arm_data``)
+unless ``--datafile`` names a datafile.
+
 Run:  python examples/example_sysid.py [--datafile PATH] [--save DIR]
 """
 
@@ -12,23 +15,22 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-from koopman_realizations_tpu.config import SysidConfig
-from koopman_realizations_tpu.models.edmd import Ksysid
-from koopman_realizations_tpu.utils.checkpoint import save_model
-from koopman_realizations_tpu.utils.matio import load_data4sysid
-from koopman_realizations_tpu.utils.naming import model_classname
-
-DEFAULT_DATA = ("/root/reference/datafiles/"
-                "arm-3link-markers-noload-50trials_train-10_val-5.mat")
+from koopman_realizations.config import SysidConfig
+from koopman_realizations.models.edmd import Ksysid
+from koopman_realizations.utils.checkpoint import save_model
+from koopman_realizations.utils.data import generate_arm_data
+from koopman_realizations.utils.matio import load_data4sysid
+from koopman_realizations.utils.naming import model_classname
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--datafile", default=DEFAULT_DATA)
+    ap.add_argument("--datafile", default=None)
     ap.add_argument("--save", default=None, help="directory to save models")
     args = ap.parse_args()
 
-    data = load_data4sysid(args.datafile)
+    data = load_data4sysid(args.datafile) if args.datafile \
+        else generate_arm_data(seed=0)
     models = {}
     for model_type in ("linear", "bilinear", "nonlinear"):
         cfg = SysidConfig(model_type=model_type, time_type="discrete",

@@ -1,7 +1,8 @@
 """Regenerate an arm training corpus (reference ``Arm_setup.m`` +
 ``Arm.simulate_rampNhold`` + ``Data.get_data4sysid``).
 
-All excitation trials run as one vmapped batch on the accelerator.
+All excitation trials run as one vmapped batch
+(``koopman_realizations.utils.data.generate_arm_data``).
 
 Run:  python examples/generate_arm_data.py [--trials 15] [--tf 60] [--out PATH]
 """
@@ -12,30 +13,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import numpy as np
-
-from koopman_realizations_tpu.config import ArmConfig
-from koopman_realizations_tpu.models.arm import Arm
-from koopman_realizations_tpu.types import Trial
-from koopman_realizations_tpu.utils.data import get_data4sysid
-from koopman_realizations_tpu.utils.matio import save_results_mat
-
-
-def generate(trials: int = 15, tf: float = 60.0, Tramp: float = 2.5,
-             n_val: int = 5, seed: int = 0, cfg: ArmConfig = None):
-    """Returns a DataSet with the shipped datafile's schema/shape class."""
-    cfg = cfg or ArmConfig(Nmods=3, nlinks=1, L=1.0, m=0.1,
-                           output_type="markers", substeps=5)
-    arm = Arm(cfg)
-    n_val = max(1, min(n_val, trials - 1))   # >=1 train AND >=1 val trial
-    rng = np.random.default_rng(seed)
-    W = np.zeros((trials, 2))
-    sims = arm.simulate_rampNhold_batch(rng, tf=tf, Tramp=Tramp, W=W)
-    all_trials = [Trial(t=s["t"], y=s["y"], u=s["u"], x=s["x"], w=s["w"])
-                  for s in sims]
-    return get_data4sysid(all_trials[:-n_val], all_trials[-n_val:],
-                          params={"sysName": "arm-generated",
-                                  "Nmods": cfg.Nmods, "Ts": cfg.Ts})
+from koopman_realizations.utils.data import generate_arm_data
 
 
 def main():
@@ -45,7 +23,7 @@ def main():
     ap.add_argument("--val", type=int, default=5)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    ds = generate(args.trials, args.tf, n_val=args.val)
+    ds = generate_arm_data(args.trials, args.tf, n_val=args.val)
     print(f"generated {len(ds.train)} train + {len(ds.val)} val trials, "
           f"T={ds.train[0].T}, y dim {ds.train[0].n}")
     if args.out:

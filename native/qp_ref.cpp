@@ -5,7 +5,7 @@
 //
 // Role in the framework: the MATLAB reference validates its controllers
 // against quadprog/Gurobi; this solver is the equivalent ground-truth oracle
-// for the batched fixed-iteration TPU solver (ops/qp.py). It runs until
+// for the batched fixed-iteration solver (ops/qp.py). It runs until
 // convergence (not a fixed iteration count), in double precision, with no
 // batching -- accuracy over throughput. Exposed to Python via ctypes
 // (ops/qp_ref.py).

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from koopman_realizations_tpu.config import ArmConfig
-from koopman_realizations_tpu.models.arm import Arm
-from koopman_realizations_tpu.ops.integrators import rk4, rk45, sdirk2
+from koopman_realizations.config import ArmConfig
+from koopman_realizations.models.arm import Arm
+from koopman_realizations.ops.integrators import rk4, rk45, sdirk2
 
 
 def shipped_arm():

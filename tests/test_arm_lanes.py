@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from koopman_realizations_tpu.config import ArmConfig
-from koopman_realizations_tpu.models.arm import Arm
-from koopman_realizations_tpu.models.arm_lanes import rhs_soa, sdirk2_soa
+from koopman_realizations.config import ArmConfig
+from koopman_realizations.models.arm import Arm
+from koopman_realizations.models.arm_lanes import rhs_soa, sdirk2_soa
 
 
 def _rand_batch(rng, arm, B):
@@ -78,3 +78,46 @@ def test_unbatched_call_unchanged():
     ref = arm._simulate_Ts_lane(x, u, jnp.zeros(2, x.dtype), arm.cfg.Ts)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                rtol=1e-12, atol=1e-12)
+
+
+def test_lu_soa_matches_numpy():
+    """The lane-wise LU solve behind the SDIRK2 Newton systems."""
+    from koopman_realizations.models.arm_lanes import (
+        lu_soa,
+        lu_solve_soa,
+    )
+    rng = np.random.default_rng(3)
+    n, B = 4, 8
+    S = np.eye(n)[None] + 0.3 * rng.standard_normal((B, n, n))
+    b = rng.standard_normal((B, n))
+    F = lu_soa([[jnp.asarray(S[:, i, j]) for j in range(n)]
+                for i in range(n)], n)
+    x = lu_solve_soa(F, [jnp.asarray(b[:, i]) for i in range(n)], n)
+    np.testing.assert_allclose(np.stack([np.asarray(v) for v in x], 1),
+                               np.linalg.solve(S, b[..., None])[..., 0],
+                               rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("newton_iters", [1, 2])
+def test_sdirk2_f32_matches_f64(newton_iters):
+    """In f32 the plant step stays at f32 rounding of the f64 step even
+    with ONE chord-Newton iteration per stage (the bench setting): the
+    block-eliminated Newton solve keeps the conditioning of the N x N
+    second-order system (normal equations squared it, ~1e-3 error)."""
+    arm = Arm(ArmConfig(Nmods=3, nlinks=1, substeps=3,
+                        newton_iters=newton_iters, jac_mode="step"))
+    cfg = arm.cfg
+    B = 64
+    X = np.zeros((B, cfg.nx))
+    X[:, 0] = np.linspace(-0.2, 0.2, B)
+    U = np.tile([0.2, -0.1, 0.3], (B, 1))
+    W = np.zeros((B, 2))
+
+    def step(dt):
+        return np.asarray(sdirk2_soa(
+            cfg, arm._G, arm._b, jnp.asarray(X, dt), jnp.asarray(U, dt),
+            jnp.asarray(W, dt), cfg.Ts, cfg.substeps, cfg.newton_iters,
+            cfg.jac_mode))
+
+    err = np.abs(step(jnp.float32) - step(jnp.float64)).max()
+    assert err < 5e-6, err

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from koopman_realizations_tpu.ops.batch_linalg import (
+from koopman_realizations.ops.batch_linalg import (
     chol_solve_unrolled,
     chol_unrolled,
     solve_spd_unrolled,

@@ -1,24 +1,22 @@
 """Input move-blocking (MpcConfig.input_blocks).
 
 No reference counterpart (a standard real-time MPC technique); here it is a
-TPU lever: the condensed QP's decision dim and constraint count shrink with
-the number of free moves, and the dense interior-point kernel cost is
-~quadratic in both.  Quality evidence (scripts in README round-3 notes):
-blocked (1,1,2,5) at qp_iters=3 + dual warm matches the unblocked shipping
-config on the 16-scenario multi-ref grid (err 0.0200 vs 0.0201, alive 1.0).
+throughput lever: the condensed QP's decision dim and constraint count
+shrink with the number of free moves, and the dense interior-point cost is
+~quadratic in both.
 """
 
 import numpy as np
 import pytest
 
-from koopman_realizations_tpu.config import ArmConfig, MpcConfig, SysidConfig
-from koopman_realizations_tpu.control import Ksim, make_kmpc
-from koopman_realizations_tpu.control.kmpc import (
+from koopman_realizations.config import ArmConfig, MpcConfig, SysidConfig
+from koopman_realizations.control import Ksim, make_kmpc
+from koopman_realizations.control.kmpc import (
     dual_shift_perm_blocked,
     move_blocking,
 )
-from koopman_realizations_tpu.models.arm import Arm
-from koopman_realizations_tpu.models.edmd import Ksysid
+from koopman_realizations.models.arm import Arm
+from koopman_realizations.models.edmd import Ksysid
 
 
 def _cfg(**kw):
@@ -45,7 +43,7 @@ def test_move_blocking_structure():
     Sel is a left inverse of Tb, vacuous intra-group slope rows are gone,
     and the surviving rows are the builder's box-then-slope order with
     one 2m block per group (what dual_shift_perm_blocked relies on)."""
-    from koopman_realizations_tpu.control.kmpc import input_constraint_rows
+    from koopman_realizations.control.kmpc import input_constraint_rows
 
     m, Np, blocks = 3, 10, (1, 1, 2, 5)
     cfg = _cfg(input_blocks=blocks)
@@ -59,7 +57,7 @@ def test_move_blocking_structure():
     F, cF = input_constraint_rows(cfg, m, Np, S())
     Tb, Sel, Fr, F0, cr, kept = move_blocking(blocks, m, Np, F, cF)
     # kept indices match the independently derived structural ground truth
-    from koopman_realizations_tpu.control.kmpc import expected_blocked_keep
+    from koopman_realizations.control.kmpc import expected_blocked_keep
     np.testing.assert_array_equal(kept, expected_blocked_keep(cfg, m, Np,
                                                               blocks))
     nf = len(blocks)
@@ -119,23 +117,6 @@ def test_blocked_rti_regime(arm_dataset, blockM_ref):
     e10 = o10["err"].mean(axis=1)
     e3 = o3["err"].mean(axis=1)
     assert e3.mean() <= e10.mean() * 1.05 + 1e-4
-
-
-def test_blocked_fused_assembly_matches_plain(arm_dataset, blockM_ref,
-                                              monkeypatch):
-    """The blocked assembly-fused QP route (bilinear_consts PGWb, default
-    ON; ships (z, u_prev) to the kernel) must reproduce the plain
-    assemble-then-solve route's closed loop."""
-    import numpy as np
-
-    cfg = _cfg(qp_iters=3, qp_dual_warm=True,
-               input_blocks=(1, 1, 2, 5))
-    monkeypatch.setenv("KMPC_FUSED_ASSEMBLY", "1")
-    r_f = _sim(arm_dataset, cfg).run_trial_mpc(blockM_ref["y"], steps=60)
-    monkeypatch.setenv("KMPC_FUSED_ASSEMBLY", "0")
-    r_p = _sim(arm_dataset, cfg).run_trial_mpc(blockM_ref["y"], steps=60)
-    np.testing.assert_allclose(np.asarray(r_f["Y"]), np.asarray(r_p["Y"]),
-                               rtol=0, atol=2e-4)
 
 
 def test_blocking_rejects_unsupported():

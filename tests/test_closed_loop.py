@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from koopman_realizations_tpu.config import ArmConfig, MpcConfig, SysidConfig
-from koopman_realizations_tpu.control import Ksim, make_kmpc
-from koopman_realizations_tpu.models.arm import Arm
-from koopman_realizations_tpu.models.edmd import Ksysid
-from koopman_realizations_tpu.utils.matio import load_sim_results
+from koopman_realizations.config import ArmConfig, MpcConfig, SysidConfig
+from koopman_realizations.control import Ksim, make_kmpc
+from koopman_realizations.models.arm import Arm
+from koopman_realizations.models.edmd import Ksysid
+from koopman_realizations.utils.matio import load_sim_results
 
 GOLD = ("/root/reference/systems/thesis-arm-markers_noload_3-mods_1-links_20hz/"
         "simulations/blockM_c0p45-0p35_0p5x0p5_15sec/")
@@ -163,7 +163,7 @@ def test_bilinear_as_nmpc_closed_loop(arm_dataset, blockM):
     the feed on the model type and broke this dispatch)."""
     import dataclasses
 
-    from koopman_realizations_tpu.control.kmpc import NonlinearKmpc
+    from koopman_realizations.control.kmpc import NonlinearKmpc
 
     ks = train(arm_dataset, "bilinear")
     cfg = dataclasses.replace(example_control_cfg(), mpc_type="nonlinear",
@@ -215,7 +215,7 @@ def test_bilinear_state_bounds_and_iters(arm_dataset, blockM):
             zc = ks.model.step(zc, jnp.asarray(u))
             Z.append(zc)
         Y = np.asarray(jnp.stack(Z) @ mpc.projmtx.T)
-        from koopman_realizations_tpu.control.kmpc import _pad_ref
+        from koopman_realizations.control.kmpc import _pad_ref
         refp = np.asarray(_pad_ref(refhor, mpc.Np, mpc.nproj))
         track = np.asarray(mpc.q_diag) @ ((Y - refp).reshape(-1) ** 2)
         return float(track + np.asarray(mpc.r_diag)
@@ -312,7 +312,7 @@ def test_stale_condense_identity(arm_dataset, blockM):
 
 
 def test_analytic_poly_jacobian_matches_jacfwd(arm_dataset):
-    """The analytic MXU-GEMM Jacobian of the composed F (the NMPC batch-
+    """The analytic GEMM Jacobian of the composed F (the NMPC batch-
     scaling fix: d(x^e)/dx_i = e_i x^(e-delta_i) makes J linear in the
     degree <= d-1 monomials) must equal the jacfwd of the same F to
     roundoff -- it is a pure host-side reassociation of the same algebra."""
@@ -354,7 +354,7 @@ def test_timed_mode_matches_fused(arm_dataset, blockM):
 def test_dual_warm_start_equivalence_and_reduced_iters(arm_dataset, blockM):
     """The receding-horizon dual warm start (qp_dual_warm) must not change
     closed-loop quality at full iterations, and must HOLD quality when the
-    iteration budget is cut in half (the real-time-iteration regime the TPU
+    iteration budget is cut in half (the real-time-iteration regime the
     bench runs in; without the dual start the same budget degrades)."""
     import dataclasses
 
@@ -384,7 +384,7 @@ def test_dual_shift_perm_and_closed_loop(arm_dataset, blockM):
     regime."""
     import dataclasses
 
-    from koopman_realizations_tpu.control.kmpc import dual_shift_perm
+    from koopman_realizations.control.kmpc import dual_shift_perm
 
     base = example_control_cfg()
     m, Np = 3, base.horizon
@@ -418,12 +418,12 @@ def test_dual_shift_perm_and_closed_loop(arm_dataset, blockM):
 
 def test_nmpc_fused_condense_matches_legacy_assembly(arm_dataset):
     """The condensation-fused path's (W, v) (ops.qp._nmpc_condense_assemble,
-    the exact math the Pallas _nmpc_kernel runs in VMEM) must reproduce the
+    the per-lane condensation inside ops.qp.solve_qp_nmpc) must reproduce the
     legacy _condense + Sy-projection assembly to f32 roundoff, blocked and
     unblocked."""
     import jax.numpy as jnp
 
-    from koopman_realizations_tpu.ops.qp import _nmpc_condense_assemble
+    from koopman_realizations.ops.qp import _nmpc_condense_assemble
 
     ks = train(arm_dataset, "nonlinear")
     for blocks in (None, (1, 1, 2, 5)):

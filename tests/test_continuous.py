@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from koopman_realizations_tpu.config import SysidConfig
-from koopman_realizations_tpu.models.edmd import Ksysid
-from koopman_realizations_tpu.models.koopman import as_discrete, zoh_discretize
-from koopman_realizations_tpu.types import DataSet, Trial
+from koopman_realizations.config import SysidConfig
+from koopman_realizations.models.edmd import Ksysid
+from koopman_realizations.models.koopman import as_discrete, zoh_discretize
+from koopman_realizations.types import DataSet, Trial
 
 
 def _cts_linear_dataset(rng, Ts=0.05, T=400, trials=4):
@@ -74,13 +74,13 @@ def test_zoh_step_bilinear_exact(rng):
     import jax
     import jax.numpy as jnp
 
-    from koopman_realizations_tpu.models.koopman import (
+    from koopman_realizations.models.koopman import (
         BilinearModel,
         ModelMeta,
         rollout_bilinear,
         zoh_step_bilinear,
     )
-    from koopman_realizations_tpu.ops.integrators import rk4
+    from koopman_realizations.ops.integrators import rk4
 
     NL, m, Ts = 5, 2, 0.1
     A = rng.normal(size=(NL, NL)) * 0.8

@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from koopman_realizations_tpu.config import SysidConfig
-from koopman_realizations_tpu.models.edmd import Ksysid
-from koopman_realizations_tpu.models.koopman import rollout
-from koopman_realizations_tpu.ops.lasso import lasso_constrained_lstsq, project_l1_ball
-from koopman_realizations_tpu.types import DataSet, Trial
+from koopman_realizations.config import SysidConfig
+from koopman_realizations.models.edmd import Ksysid
+from koopman_realizations.models.koopman import rollout
+from koopman_realizations.ops.lasso import lasso_constrained_lstsq, project_l1_ball
+from koopman_realizations.types import DataSet, Trial
 
 
 def _linear_system_dataset(rng, T=300, trials=4):
@@ -131,7 +131,7 @@ def test_lasso_f64_mirror_matches_jax(rng):
     """The host float64 FISTA (used by Ksysid regardless of the x64 flag)
     must reproduce the JAX implementation step for step (here both run
     f64 under the test env's x64)."""
-    from koopman_realizations_tpu.ops.lasso import lasso_constrained_lstsq_f64
+    from koopman_realizations.ops.lasso import lasso_constrained_lstsq_f64
 
     A = rng.standard_normal((120, 9))
     B = rng.standard_normal((120, 9))

@@ -25,9 +25,9 @@ Calibration (scripts/lasso_cert_proto.py): converged FISTA certifies to
 import numpy as np
 import pytest
 
-from koopman_realizations_tpu.config import SysidConfig
-from koopman_realizations_tpu.models.edmd import Ksysid
-from koopman_realizations_tpu.ops.lasso import (
+from koopman_realizations.config import SysidConfig
+from koopman_realizations.models.edmd import Ksysid
+from koopman_realizations.ops.lasso import (
     lasso_constrained_lstsq_f64,
     lasso_oracle_constrained,
 )

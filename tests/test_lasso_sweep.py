@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from koopman_realizations_tpu.config import ArmConfig, MpcConfig, SysidConfig
-from koopman_realizations_tpu.models.arm import Arm
-from koopman_realizations_tpu.models.edmd import Ksysid
-from koopman_realizations_tpu.workflows.lasso_sweep import lasso_sweep_closed_loop
+from koopman_realizations.config import ArmConfig, MpcConfig, SysidConfig
+from koopman_realizations.models.arm import Arm
+from koopman_realizations.models.edmd import Ksysid
+from koopman_realizations.workflows.lasso_sweep import lasso_sweep_closed_loop
 
 
 def test_lasso_sweep_closed_loop(arm_dataset, blockM_ref):

@@ -10,12 +10,12 @@ load and improves closed-loop tracking under load.
 import numpy as np
 import pytest
 
-from koopman_realizations_tpu.config import ArmConfig, MpcConfig, SysidConfig
-from koopman_realizations_tpu.control import Ksim, make_kmpc, make_load_observer
-from koopman_realizations_tpu.models.arm import Arm
-from koopman_realizations_tpu.models.edmd import Ksysid
-from koopman_realizations_tpu.types import DataSet, Trial
-from koopman_realizations_tpu.utils.trajectories import get_circle, make_trajectory
+from koopman_realizations.config import ArmConfig, MpcConfig, SysidConfig
+from koopman_realizations.control import Ksim, make_kmpc, make_load_observer
+from koopman_realizations.models.arm import Arm
+from koopman_realizations.models.edmd import Ksysid
+from koopman_realizations.types import DataSet, Trial
+from koopman_realizations.utils.trajectories import get_circle, make_trajectory
 
 
 @pytest.fixture(scope="module")
@@ -200,7 +200,7 @@ def test_delayed_loaded_observer_recovers_exact_model_load(loaded_setup):
     at a known scaled load and the estimator must recover that load
     near-exactly (the regression is then consistent by construction).
     """
-    from koopman_realizations_tpu.control.observer import make_load_observer
+    from koopman_realizations.control.observer import make_load_observer
     import jax.numpy as jnp
 
     _, _, ds = loaded_setup

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from koopman_realizations_tpu.config import ArmConfig, MpcConfig, SysidConfig
-from koopman_realizations_tpu.control import Ksim, make_kmpc
-from koopman_realizations_tpu.models.arm import Arm
-from koopman_realizations_tpu.models.edmd import Ksysid
-from koopman_realizations_tpu.utils.trajectories import (
+from koopman_realizations.config import ArmConfig, MpcConfig, SysidConfig
+from koopman_realizations.control import Ksim, make_kmpc
+from koopman_realizations.models.arm import Arm
+from koopman_realizations.models.edmd import Ksysid
+from koopman_realizations.utils.trajectories import (
     get_circle,
     get_pacman,
     make_trajectory,
@@ -94,7 +94,7 @@ def test_batch_matches_single_with_nonzero_x0(arm_dataset, blockM_ref):
 
 def test_run_multi_ref_nmpc(arm_dataset, blockM_ref):
     """Per-lane reference trajectories through the NMPC controller (the
-    fused kernel's per-lane sqRef path on TPU; pure path here)."""
+    per-lane sqRef path of the condensation)."""
     ks = Ksysid(arm_dataset, SysidConfig(model_type="nonlinear",
                                          obs_type=("poly",), obs_degree=(3,),
                                          dim_red=True, pca_explained=99.99,
@@ -126,8 +126,7 @@ def test_multi_ref_rti_floor_config(arm_dataset, blockM_ref, blocks,
                                     qp_iters, shift):
     """The bilinear RTI regimes (dual warm, bench.py) must hold every-lane
     survival and near-qp=10 tracking across trajectories x initial
-    conditions x unmodeled loads -- the CI-sized version of
-    scripts/rti_floor_sweep.py MODE=multiref (round-3 verdict #3).
+    conditions x unmodeled loads (a CI-sized multi-ref grid).
     Measured full-grid references (192 lanes, 301 steps): unblocked
     qp=2+shift alive 1.0, err_mean 0.0186 vs 0.0179 at qp=10, worst
     0.0387; blocked (1,1,2,5) qp=3 err_mean 0.0187 (shift off; round-4

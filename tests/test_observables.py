@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from koopman_realizations_tpu.config import SysidConfig
-from koopman_realizations_tpu.ops.observables import (
+from koopman_realizations.config import SysidConfig
+from koopman_realizations.ops.observables import (
     KoopmanBasis,
     build_basis,
     delay_embed,

@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from koopman_realizations_tpu.config import ArmConfig, MpcConfig, SysidConfig
-from koopman_realizations_tpu.control import Ksim, make_kmpc
-from koopman_realizations_tpu.models.arm import Arm
-from koopman_realizations_tpu.models.edmd import Ksysid
-from koopman_realizations_tpu.ops.lstsq import lstsq
-from koopman_realizations_tpu.parallel import (
+from koopman_realizations.config import ArmConfig, MpcConfig, SysidConfig
+from koopman_realizations.control import Ksim, make_kmpc
+from koopman_realizations.models.arm import Arm
+from koopman_realizations.models.edmd import Ksysid
+from koopman_realizations.ops.lstsq import lstsq
+from koopman_realizations.parallel import (
     koopman_gram_sharded,
     make_mesh,
     run_batch_sharded,
@@ -87,13 +87,13 @@ def test_sharding_overhead_bounded(arm_dataset, blockM_ref, mesh):
     more than a generous multiple of the one-device vmap wall (round-2
     verdict: bound the sharding overhead at small B).  Measured on an idle
     virtual mesh the shard_map runner is ~4.6% slower at 1 device and
-    FASTER at >=2 (examples/scaling_bench.py); 3x absorbs CI noise while
-    still catching a pathological re-layout or per-step collective."""
+    FASTER at >=2; 3x absorbs CI noise while still catching a
+    pathological re-layout or per-step collective."""
     import time
 
     import jax
 
-    from koopman_realizations_tpu.parallel.scenarios import sharded_batch_runner
+    from koopman_realizations.parallel.scenarios import sharded_batch_runner
 
     ks = Ksysid(arm_dataset, SysidConfig(model_type="linear", obs_type=("poly",),
                                          obs_degree=(3,), dim_red=True)
@@ -129,9 +129,9 @@ def test_sharding_overhead_bounded(arm_dataset, blockM_ref, mesh):
 
 def test_feature_sharded_pca_matches_host(rng):
     """Model-axis sharding: top-k PCs of a feature matrix match host PCA."""
-    from koopman_realizations_tpu.ops.linalg import pca_explained
-    from koopman_realizations_tpu.parallel.pca_sharded import pca_feature_sharded
-    from koopman_realizations_tpu.parallel import make_mesh
+    from koopman_realizations.ops.linalg import pca_explained
+    from koopman_realizations.parallel.pca_sharded import pca_feature_sharded
+    from koopman_realizations.parallel import make_mesh
 
     mesh = make_mesh(n_data=1, n_model=4)
     # low-rank-ish data: 777 features (not divisible by 4), clear spectrum
@@ -148,3 +148,54 @@ def test_feature_sharded_pca_matches_host(rng):
     # explained fractions match the top eigenvalue shares
     np.testing.assert_allclose(np.sort(expl)[::-1],
                                (explained[:6] / 100.0), rtol=1e-4)
+
+
+def test_four_device_phase_on_virtual_mesh(arm_generated, blockM_generated):
+    """``chip_smoke.py --four`` at a tiny size: the bench's closed loop
+    sharded over a 4-device mesh equals the same lanes on one device (the
+    parity bounds of the smoke), and the sharded Gram fit equals the
+    one-device fit."""
+    import jax
+
+    import bench
+    import chip_smoke
+
+    devs = jax.devices()[:4]
+    mesh4 = make_mesh(n_data=4, devices=devs)
+    mesh1 = make_mesh(n_data=1, devices=devs[:1])
+    ks = Ksysid(arm_generated, SysidConfig(
+        model_type="bilinear", obs_type=("poly",), obs_degree=(3,),
+        dim_red=True, dtype="float32")).train_models()
+    mpc = make_kmpc(ks.model, ks.scaler, MpcConfig(
+        horizon=10, qp_iters=4, qp_dual_warm=True, input_blocks=(1, 1, 2, 5),
+        input_bounds=(-7 * np.pi / 8, 7 * np.pi / 8), input_slopeConst=1e-1,
+        cost_running=10.0, cost_terminal=100.0,
+        cost_input=(3e-3, 2e-3, 1e-3), proj_idx=(4, 5)))
+    sim = Ksim(Arm(ArmConfig(Nmods=3, nlinks=1, L=1.0, m=0.1,
+                             output_type="markers", substeps=3,
+                             newton_iters=1, jac_mode="step")), mpc)
+    ref = np.asarray(blockM_generated["y"])
+    steps = 40
+    X0, W = bench.lane_inputs(16)
+    res = [run_batch_sharded(sim, ref, X0, m, load=W, steps=steps)
+           for m in (mesh4, mesh1)]
+    chip_smoke.check_parity("4 vs 1 device", *(
+        {"Yp": r["Y"][..., [4, 5]], "alive": r["alive"]} for r in res),
+        ref, steps)
+    assert res[0]["alive"].all()
+
+    ks1 = Ksysid(arm_generated, SysidConfig(model_type="linear",
+                                            obs_type=("poly",),
+                                            obs_degree=(2,)))
+    sp, basis = ks1.snapshot_pairs, ks1.basis
+
+    def lift_pair(a, b, u):
+        return (jnp.concatenate([basis.lift(a), u]),
+                jnp.concatenate([basis.lift(b), u]))
+
+    K4, K1 = (np.asarray(koopman_gram_sharded(lift_pair, sp.alpha, sp.beta,
+                                              sp.u, m))
+              for m in (mesh4, mesh1))
+    Px, _ = ks1.lift_snapshot_matrices()
+    p4, p1 = np.asarray(Px) @ K4, np.asarray(Px) @ K1
+    assert np.abs(p4 - p1).max() / np.abs(p1).max() < chip_smoke.GRAM_RTOL

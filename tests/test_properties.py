@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from koopman_realizations_tpu.config import SysidConfig
-from koopman_realizations_tpu.models.edmd import Ksysid
-from koopman_realizations_tpu.ops.observables import build_basis
-from koopman_realizations_tpu.ops.scaling import fit_scaler
-from koopman_realizations_tpu.types import DataSet, Trial
+from koopman_realizations.config import SysidConfig
+from koopman_realizations.models.edmd import Ksysid
+from koopman_realizations.ops.observables import build_basis
+from koopman_realizations.ops.scaling import fit_scaler
+from koopman_realizations.types import DataSet, Trial
 
 
 @pytest.mark.parametrize("family,degree", [
@@ -93,8 +93,8 @@ def test_rebuilt_model_shares_jit_cache(arm_dataset):
     numpy PCA tables)."""
     import jax
 
-    from koopman_realizations_tpu.config import SysidConfig
-    from koopman_realizations_tpu.models.edmd import Ksysid
+    from koopman_realizations.config import SysidConfig
+    from koopman_realizations.models.edmd import Ksysid
 
     cfg = SysidConfig(model_type="linear", obs_type=("poly",),
                       obs_degree=(2,), dim_red=True, snapshots=400)

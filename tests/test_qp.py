@@ -5,9 +5,8 @@ import itertools
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
-from koopman_realizations_tpu.ops.qp import solve_qp, solve_qp_batch, solve_qp_eq
+from koopman_realizations.ops.qp import solve_qp, solve_qp_batch, solve_qp_eq
 
 
 def brute_force_qp(P, q, A, b):
@@ -66,13 +65,13 @@ def test_unconstrained_interior():
 
 
 def test_zero_constraint_rows():
-    """mc == 0 (all MpcConfig constraints None) solves P x = -q directly;
-    vmapped lanes must not route to the Pallas kernel (its reductions are
-    over zero rows)."""
+    """mc == 0 (all MpcConfig constraints None) solves P x = -q directly,
+    vmapped lanes included (the interior point's reductions would be over
+    zero rows)."""
     import jax
     import jax.numpy as jnp
 
-    from koopman_realizations_tpu.ops.qp import solve_qp_factored
+    from koopman_realizations.ops.qp import solve_qp_factored
 
     P = np.diag([2.0, 4.0])
     q = np.array([-2.0, -4.0])
@@ -166,29 +165,3 @@ def test_mpc_like_qp_dimensions(rng):
     lam = np.asarray(sol.lam)
     kkt = P @ x + q + A.T @ lam
     assert np.abs(kkt).max() < 1e-5
-
-
-def test_band_offset_debug_check(monkeypatch, rng):
-    """KRT_QP_DEBUG_CHECKS=1 makes a stale band_offset promise fail loudly
-    (VERDICT r2 weak #6): the Pallas kernel trusts the promise, so misuse
-    must be catchable in tests rather than silently corrupting Newton."""
-    from koopman_realizations_tpu.ops.qp import band_offset_of
-
-    monkeypatch.setenv("KRT_QP_DEBUG_CHECKS", "1")
-    n = 6
-    # slope-style rows: +-I at offset 2 -> |A|^T|A| has band exactly 2
-    A = np.zeros((2 * (n - 2), n))
-    for k in range(n - 2):
-        A[2 * k, k], A[2 * k, k + 2] = -1.0, 1.0
-        A[2 * k + 1, k], A[2 * k + 1, k + 2] = 1.0, -1.0
-    assert band_offset_of(A) == 2
-    P = np.eye(n)
-    q = rng.standard_normal(n)
-    b = np.full(A.shape[0], 1.0)
-    with pytest.raises(ValueError, match="band_offset promise"):
-        solve_qp(P, q, A, b, iters=5, band_offset=1)
-    # the true promise (and the conservative diag-only case) pass
-    sol = solve_qp(P, q, A, b, iters=20, band_offset=2)
-    assert bool(sol.ok)
-    sol2 = solve_qp(P, q, np.eye(n), b[:n], iters=20, band_offset=2)
-    assert bool(sol2.ok)

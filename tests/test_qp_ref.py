@@ -1,11 +1,11 @@
-"""Cross-validation of the batched TPU QP solver against the native oracle."""
+"""Cross-validation of the batched QP solver against the native oracle."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from koopman_realizations_tpu.ops import qp_ref
-from koopman_realizations_tpu.ops.qp import solve_qp
+from koopman_realizations.ops import qp_ref
+from koopman_realizations.ops.qp import solve_qp
 from test_qp import random_qp
 
 pytestmark = pytest.mark.skipif(not qp_ref.available(),

@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from koopman_realizations_tpu.ops.qp import solve_qp
-from koopman_realizations_tpu.ops.riccati import (
+from koopman_realizations.ops.qp import solve_qp
+from koopman_realizations.ops.riccati import (
     solve_lq_box_barrier,
     solve_lq_stagewise,
 )

@@ -5,14 +5,14 @@ import glob
 import numpy as np
 import pytest
 
-from koopman_realizations_tpu.models.rsys import (
+from koopman_realizations.models.rsys import (
     RsysEnsemble,
     construct_systems,
     generate_input_steps,
     simulate_systems,
 )
-from koopman_realizations_tpu.utils.matio import load_rsys_all
-from koopman_realizations_tpu.workflows import evaluate_rand_models
+from koopman_realizations.utils.matio import load_rsys_all
+from koopman_realizations.workflows import evaluate_rand_models
 
 
 def test_construct_systems_shapes(rng):
@@ -77,7 +77,7 @@ def test_evaluate_rand_models_on_shipped_data(shipped_rsys):
 
 def test_evaluate_rand_models_sharded_matches(shipped_rsys):
     """System-axis sharding over the 8-device mesh changes nothing numerically."""
-    from koopman_realizations_tpu.parallel import make_mesh
+    from koopman_realizations.parallel import make_mesh
 
     mesh = make_mesh(n_data=8)
     kw = dict(max_degree_linear=3, max_degree_bilinear=2,
@@ -115,9 +115,9 @@ def _pin_to_production(datasets, rtol=1e-6, atol=1e-9):
     """
     import jax.numpy as jnp
 
-    from koopman_realizations_tpu.config import SysidConfig
-    from koopman_realizations_tpu.models.edmd import Ksysid
-    from koopman_realizations_tpu.workflows.rand_models import (
+    from koopman_realizations.config import SysidConfig
+    from koopman_realizations.models.edmd import Ksysid
+    from koopman_realizations.workflows.rand_models import (
         _fit_and_val,
         _scale_params,
         _stack_ensemble,

@@ -10,11 +10,11 @@ import os
 import numpy as np
 import pytest
 
-from koopman_realizations_tpu.config import MpcConfig, SysidConfig
-from koopman_realizations_tpu.control import make_kmpc
-from koopman_realizations_tpu.models.edmd import Ksysid
-from koopman_realizations_tpu.utils.data import chop, get_data4sysid
-from koopman_realizations_tpu.utils.matio import load_data4sysid
+from koopman_realizations.config import MpcConfig, SysidConfig
+from koopman_realizations.control import make_kmpc
+from koopman_realizations.models.edmd import Ksysid
+from koopman_realizations.utils.data import chop, get_data4sysid
+from koopman_realizations.utils.matio import load_data4sysid
 
 SNAKE = "/root/reference/datafiles/snake-data.mat"
 
@@ -60,7 +60,7 @@ def test_snake_fourier_delay_linear(snake_dataset):
 def test_snake_model_in_loop_mpc(snake_dataset):
     """Soft-robot closed loop against its own learned model (no physical
     simulator exists for the snake; `Kmpc.run_simulation` semantics)."""
-    from koopman_realizations_tpu.control import run_model_simulation
+    from koopman_realizations.control import run_model_simulation
 
     cfg = SysidConfig(model_type="bilinear", obs_type=("fourier_sparser",),
                       obs_degree=(1,))

@@ -5,12 +5,12 @@ import os
 import numpy as np
 import pytest
 
-from koopman_realizations_tpu.config import SysidConfig
-from koopman_realizations_tpu.models.edmd import Ksysid
-from koopman_realizations_tpu.types import DataSet, Trial
-from koopman_realizations_tpu.utils.checkpoint import export_mat, load_model, save_model
-from koopman_realizations_tpu.utils.data import chop, get_data4sysid, merge_files, resample
-from koopman_realizations_tpu.utils.naming import auto_rename, model_classname
+from koopman_realizations.config import SysidConfig
+from koopman_realizations.models.edmd import Ksysid
+from koopman_realizations.types import DataSet, Trial
+from koopman_realizations.utils.checkpoint import export_mat, load_model, save_model
+from koopman_realizations.utils.data import chop, get_data4sysid, merge_files, resample
+from koopman_realizations.utils.naming import auto_rename, model_classname
 
 
 def _trial(T=100, n=2, m=1, Ts=0.1, seed=0):
@@ -89,7 +89,7 @@ def test_save_results_mat_roundtrip(tmp_path):
     """Closed-loop results export in the reference's result-struct layout."""
     import scipy.io as sio
 
-    from koopman_realizations_tpu.utils.matio import save_results_mat
+    from koopman_realizations.utils.matio import save_results_mat
 
     results = {"T": np.arange(5) * 0.05, "U": np.zeros((5, 3)),
                "Y": np.ones((5, 6)), "R": np.ones((5, 2)),
@@ -115,7 +115,7 @@ def _mk_trial(T=50, n=1, m=1, rng=None, with_xw=False):
 def test_save_data4sysid_roundtrip(tmp_path):
     """Write-side data4sysid parity (``Rsys.save_data`` layout,
     ``Rsys.m:194-207``): our writer round-trips through our reader."""
-    from koopman_realizations_tpu.utils.matio import (
+    from koopman_realizations.utils.matio import (
         load_data4sysid,
         save_data4sysid,
     )
@@ -135,7 +135,7 @@ def test_save_data4sysid_roundtrip(tmp_path):
 def test_save_rsys_ensemble_roundtrip(tmp_path):
     """``rsys-i_...`` per-system files + the ``rsys-all`` aggregate
     (``Rsys.m:182-216``) read back with the shipped-schema loaders."""
-    from koopman_realizations_tpu.utils.matio import (
+    from koopman_realizations.utils.matio import (
         load_data4sysid,
         load_rsys_all,
         save_rsys_ensemble,
@@ -159,11 +159,11 @@ def test_save_rsys_ensemble_roundtrip(tmp_path):
 def test_save_ref_trajectory_roundtrip(tmp_path):
     """Trajectory writer (``def_trajectory.m:37-40``) matches the shipped
     ref-struct schema bit-for-bit through the loader."""
-    from koopman_realizations_tpu.utils.matio import (
+    from koopman_realizations.utils.matio import (
         load_ref_trajectory,
         save_ref_trajectory,
     )
-    from koopman_realizations_tpu.utils.trajectories import (
+    from koopman_realizations.utils.trajectories import (
         get_blockM,
         make_trajectory,
     )
@@ -181,22 +181,22 @@ def test_save_ref_trajectory_roundtrip(tmp_path):
     np.testing.assert_allclose(back["t"], ref["t"], rtol=1e-15)
 
 
-def test_roofline_model(arm_dataset):
+def test_roofline_model(arm_generated):
     """The analytic roofline model (utils/roofline.py) must track config
     knobs: FLOPs grow with qp_iters, blocking shrinks both FLOPs and the
-    kernel IO bytes, and the MXU subset is a strict subset of the total."""
-    from koopman_realizations_tpu.config import ArmConfig, MpcConfig
-    from koopman_realizations_tpu.control import make_kmpc
-    from koopman_realizations_tpu.utils.roofline import (
+    QP IO bytes, and the GEMM subset is a strict subset of the total."""
+    from koopman_realizations.config import ArmConfig, MpcConfig
+    from koopman_realizations.control import make_kmpc
+    from koopman_realizations.utils.roofline import (
         bilinear_step_cost,
-        chip_specs,
+        device_peaks,
         roofline_summary,
     )
 
-    ks = Ksysid(arm_dataset, SysidConfig(model_type="bilinear",
-                                         obs_type=("poly",), obs_degree=(3,),
-                                         dim_red=True,
-                                         dtype="float32")).train_models()
+    ks = Ksysid(arm_generated, SysidConfig(model_type="bilinear",
+                                           obs_type=("poly",),
+                                           obs_degree=(3,), dim_red=True,
+                                           dtype="float32")).train_models()
 
     def mk(**kw):
         return make_kmpc(ks.model, ks.scaler, MpcConfig(
@@ -213,20 +213,53 @@ def test_roofline_model(arm_dataset):
         mk(qp_iters=8, qp_dual_warm=True, input_blocks=(1, 1, 2, 5)), acfg)
     for c in (blocked, unblocked, more_iters):
         assert c["flops_total"] > 0
-        assert 0 < c["mxu_flops"] < c["flops_total"]
+        assert 0 < c["gemm_flops"] < c["flops_total"]
         assert 0 < c["bytes_min"] < c["bytes_est"]
         assert c["flops_total"] == sum(c["flops"].values())
     assert blocked["flops_total"] < unblocked["flops_total"]
     assert blocked["bytes_min"] < unblocked["bytes_min"]
     assert more_iters["flops_total"] > blocked["flops_total"]
 
-    spec = chip_specs("TPU v5 lite")
-    assert spec["known"] and spec["peak_bf16"] == 197e12
-    roof = roofline_summary(19.26e6, blocked, "TPU v5 lite")
-    assert 0 < roof["mfu_vs_bf16_peak"] < 1
+    kind = "NVIDIA H100 80GB HBM3"
+    assert device_peaks(kind)["peak_f32"] == 67e12
+    roof = roofline_summary(15.3e6, {
+        "flops_per_lane_step": blocked["flops_total"],
+        "hbm_bytes_per_lane_step_est": blocked["bytes_est"]}, kind)
+    assert 0 < roof["f32_frac"] < 1
     assert 0 < roof["hbm_frac_est"] < 1
-    assert roof["hbm_gbps_min"] < roof["hbm_gbps_est"]
-    # unknown chips degrade gracefully (no MFU, still absolute numbers)
-    roof_unk = roofline_summary(1e6, blocked, "TPU v99")
-    assert "mfu_vs_bf16_peak" not in roof_unk
-    assert roof_unk["achieved_flops_per_s"] > 0
+
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB",
+                                  "NVIDIA H100 PCIe"])
+def test_roofline_unknown_device_is_an_error(kind):
+    """A device without published peaks in the table is an error, never a
+    silent NaN share."""
+    from koopman_realizations.utils.roofline import (
+        device_peaks,
+        roofline_summary,
+    )
+    with pytest.raises(KeyError, match="no published peaks"):
+        device_peaks(kind)
+    with pytest.raises(KeyError):
+        roofline_summary(1e6, {"flops_per_lane_step": 1,
+                               "hbm_bytes_per_lane_step_est": 1}, kind)
+
+
+def test_generate_arm_data_is_seeded():
+    """The in-repo corpus is a function of its seed: same seed, same
+    trials; another seed, another excitation.  Shape class of the
+    reference datafile (markers y in R^6, 3 inputs, 20 Hz)."""
+    from koopman_realizations.utils.data import generate_arm_data
+
+    a = generate_arm_data(trials=3, tf=4.0, n_val=1, seed=0)
+    b = generate_arm_data(trials=3, tf=4.0, n_val=1, seed=0)
+    c = generate_arm_data(trials=3, tf=4.0, n_val=1, seed=1)
+    assert len(a.train) == 2 and len(a.val) == 1
+    tr = a.train[0]
+    assert tr.y.shape[1] == 6 and tr.u.shape[1] == 3
+    np.testing.assert_allclose(np.diff(tr.t), 0.05, atol=1e-12)
+    for x, y in zip(a.train + a.val, b.train + b.val):
+        np.testing.assert_array_equal(x.y, y.y)
+        np.testing.assert_array_equal(x.u, y.u)
+    assert not np.array_equal(a.train[0].u, c.train[0].u)
+    assert np.isfinite(tr.y).all()

@@ -5,11 +5,11 @@ import os
 import numpy as np
 import pytest
 
-from koopman_realizations_tpu.config import ArmConfig, MpcConfig, SysidConfig
-from koopman_realizations_tpu.control import make_kmpc, run_model_simulation
-from koopman_realizations_tpu.models.arm import Arm
-from koopman_realizations_tpu.models.edmd import Ksysid
-from koopman_realizations_tpu.utils import viz
+from koopman_realizations.config import ArmConfig, MpcConfig, SysidConfig
+from koopman_realizations.control import make_kmpc, run_model_simulation
+from koopman_realizations.models.arm import Arm
+from koopman_realizations.models.edmd import Ksysid
+from koopman_realizations.utils import viz
 
 
 def test_run_model_simulation(arm_dataset, blockM_ref):
@@ -66,9 +66,9 @@ def test_animate_arm_refendeff_and_validation(tmp_path):
     771-861``)."""
     import numpy as np
 
-    from koopman_realizations_tpu.config import ArmConfig
-    from koopman_realizations_tpu.models.arm import Arm
-    from koopman_realizations_tpu.utils import viz
+    from koopman_realizations.config import ArmConfig
+    from koopman_realizations.models.arm import Arm
+    from koopman_realizations.utils import viz
 
     arm = Arm(ArmConfig(Nmods=2, nlinks=1))
     T = 6
@@ -91,7 +91,7 @@ def test_animate_timeseries(tmp_path):
     """``Data.animate_timeseries`` (``Data.m:146-254``) moving window."""
     import numpy as np
 
-    from koopman_realizations_tpu.utils import viz
+    from koopman_realizations.utils import viz
 
     t = np.arange(0, 1.0, 0.05)
     data = np.stack([np.sin(6 * t), np.cos(6 * t)], axis=1)
